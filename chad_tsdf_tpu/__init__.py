@@ -1,11 +1,11 @@
-"""chad_tsdf_tpu — a TPU-native dense-mapping (TSDF) engine.
+"""chad_tsdf_tpu — a dense-mapping (TSDF) engine in JAX/XLA for NVIDIA GPUs.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 ``M2-TE/chad_tsdf`` (a C++20 TSDF SLAM mapping backend): streaming point-cloud
 insertion with Morton sorting and neighbourhood normal estimation, truncated
 signed-distance integration along sensor rays, a submapped hash-consed DAG map
 representation, and marching-cubes mesh extraction to PLY — built as
-sort/segment-scan/gather array programs and Pallas kernels, scaling over
+sort/segment-scan/scatter array programs, scaling over
 device meshes via Morton-range sharding (see chad_tsdf_tpu.parallel).
 
 Public API mirrors the reference's single entry class

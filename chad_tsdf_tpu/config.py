@@ -9,9 +9,9 @@ neighbourhood ``min_points = 8`` with up to 3 Morton coarsening levels
 (include/chad/detail/levels.hpp:195).  Here every constant is a named,
 documented field of one frozen dataclass.
 
-TPU-specific capacity fields exist because XLA compiles static shapes: points
-per insert, DDA sample budget, block-pool capacity etc. are fixed at trace
-time, with overflow surfaced through counters (never silent truncation).
+Capacity fields exist because XLA compiles static shapes: points per insert,
+DDA sample budget, block-pool capacity etc. are fixed at trace time, with
+overflow surfaced through counters (never silent truncation).
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ class MapConfig:
     normal_min_points: int = 8     # min neighbourhood size for a plane fit
     normal_max_depth: int = 3      # Morton coarsening rounds (0,3,6 bits)
 
-    # --- static capacities (TPU: shapes are compile-time constants) ---
+    # --- static capacities (XLA shapes are compile-time constants) ---
     # max points per insert() call; longer clouds are processed in chunks
     max_points: int = 1 << 20
     # compile-shape buckets for streaming inserts: a scan is padded to the
@@ -46,8 +46,8 @@ class MapConfig:
     # DDA ray-sample slots per point; None = auto from trunc/res (see dda_steps)
     max_steps: int | None = None
     # capacity of the active block pool (blocks of 8x8x8 voxels).  The
-    # directory rebuild sorts O(block_capacity) keys per insert and the
-    # merge kernel's grid spans touched_capacity steps, so these defaults
+    # directory rebuild sorts O(block_capacity) keys per insert, so these
+    # defaults
     # are sized for a submap's working set (the active map rotates every
     # submap_distance of travel), not the whole mission: 64k blocks =
     # 33.5M voxels = 256 MiB of pool.  Overflow is counted, never silent.
@@ -66,53 +66,21 @@ class MapConfig:
     # write the LVR2-compatible binary .grid dump on save() (lvr2.cpp:290
     # writes it unconditionally; here it is opt-in)
     save_grid: bool = False
-    # marching cubes backend: 'auto' -> device (JAX classify + tri-table
-    # gather + compaction, mesh/device_mc.py) on TPU, host numpy elsewhere;
-    # or force 'device' / 'host'
+    # marching cubes backend: 'auto' (see backend.choose), or force
+    # 'device' (JAX classify + tri-table gather + compaction,
+    # mesh/device_mc.py) / 'host' (numpy, mesh/mc.py)
     mesh_impl: str = "auto"
 
     # --- execution ---
-    # 'auto' -> 'fused' on TPU (one Pallas kernel for DDA + signed distance
-    # + per-tile accumulation, ops/fused_integrate.py), XLA scatter
-    # elsewhere; or force 'fused' / 'tile' (separate DDA + stage-A kernels)
-    # / 'pallas' (global-sort + segment kernel) / 'xla'
+    # insert accumulation backend: 'auto' (see backend.choose), or force
+    # 'xla' (sample sort + scatter-add, core/integrate.update_pool) / 'seg'
+    # (voxel-sorted segment reduction + compacted scatter,
+    # core/integrate.insert_step_sparse_seg)
     accumulate_impl: str = "auto"
-    # distinct-block-list capacity per 1024-point stage-A tile (see
-    # ops/tile_accum.py); samples beyond it take the sort fallback and are
-    # counted in tile_overflow.  48 clears the canonical 1M-point sphere's
-    # worst tile (~35 distinct blocks) with margin; measured on TPU v5e,
-    # 48 -> 87 ms / 64 -> 93 ms per 1M-point insert.
-    tile_nb: int = 48
-    # 'auto' -> fused Pallas segmented-moment normals on TPU
-    # (ops/normals_pallas.py), XLA scans elsewhere; or force 'pallas'/'xla'
-    normals_impl: str = "auto"
-    # density threshold for the host-side impl dispatch under 'auto': the
-    # fused tile kernel needs >= TILE/tile_nb ~ 21 points per touched block
-    # before DDA expansion (x2-3 distinct blocks) just to fit each tile's
-    # block list; below that every tile overflows and the insert pays the
-    # kernel AND the full sort fallback.  The estimate comes from a host
-    # subsample, which undercounts blocks and so OVERestimates density by
-    # up to ~1.5x on sparse scans (KITTI true ~12, estimates 26-38); dense
-    # close-range scans estimate accurately (sphere: ~260).  64 sits safely
-    # between — a knife-edge threshold makes borderline streams flip
-    # backends per scan, each flip costing a full XLA compile mid-stream.
-    sparse_points_per_block: float = 64.0
-    # sparse backend: 'seg' = voxel-sorted segment reduction + compacted
-    # scatter (core/integrate.insert_step_sparse_seg) — no tiles, no
-    # fallback, tile_overflow 0 by construction; 'sample_tile' kept as the
-    # previous tiling approach
-    sparse_impl: str = "seg"
-    # distinct-block-list capacity per 1024-SAMPLE tile of the sample_tile
-    # path (ops/tile_accum over the block-sorted sample stream).  Sorted
-    # consecutive samples touch <= 1024/avg-segment distinct blocks, so 128
-    # covers any cloud averaging >= 8 samples per touched block; beyond it
-    # the exact sort fallback runs (counted in tile_overflow).
-    sparse_tile_nb: int = 128
     # packed ingestion: upload scans as int16 scanner-relative fixed-point
     # (step = sdf_res/8, i.e. 6.25 mm at the default resolution; range
-    # +-204.8 m — exactly the local extent) instead of f32 — HALVES the
-    # host->device bytes per insert, the dominant per-scan cost on
-    # host-link-bound streaming (and a real PCIe/DMA saving on any host).
+    # +-204.8 m — exactly the local extent) instead of f32 — halves the
+    # host->device bytes per insert.
     # The 3.1 mm max rounding error is ~an order below LiDAR range noise
     # and 1/16 of the default voxel; inputs already on the packing grid
     # round-trip exactly.  Off by default (bit-reproducible f32 path).
@@ -163,8 +131,7 @@ class MapConfig:
     @property
     def buckets(self) -> tuple:
         """Resolved ascending compile-shape buckets (always ends with
-        max_points; every entry a multiple of 4096 so the fused/tile kernels
-        accept it)."""
+        max_points; every other entry a multiple of 4096)."""
         if self.point_buckets is not None:
             bs = {min(int(b), self.max_points) for b in self.point_buckets}
         elif self.max_points % 4096 == 0 and self.max_points >= 1 << 15:
@@ -195,21 +162,8 @@ class MapConfig:
             raise ValueError("sdf_res and sdf_trunc must be positive")
         if 3 * self.block_bits > 31:
             raise ValueError("block_bits too large for int32 Morton keys")
-        impls = ("auto", "fused", "tile", "sample_tile", "seg", "pallas",
-                 "xla")
-        if self.accumulate_impl not in impls:
+        if self.accumulate_impl not in ("auto", "xla", "seg"):
             raise ValueError(f"bad accumulate_impl {self.accumulate_impl!r}")
-        if self.sparse_impl not in impls[1:]:
-            raise ValueError(f"bad sparse_impl {self.sparse_impl!r}")
-        if (self.accumulate_impl in ("tile", "fused", "sample_tile")
-                and self.max_points % 1024 != 0):
-            raise ValueError("tile accumulation needs max_points % 1024 == 0")
-        if self.tile_nb % 8 != 0 or self.tile_nb < 8:
-            raise ValueError("tile_nb must be a positive multiple of 8")
-        if self.sparse_tile_nb % 8 != 0 or self.sparse_tile_nb < 8:
-            raise ValueError("sparse_tile_nb must be a positive multiple of 8")
-        if self.normals_impl not in ("auto", "pallas", "xla"):
-            raise ValueError(f"bad normals_impl {self.normals_impl!r}")
         if self.mesh_impl not in ("auto", "device", "host"):
             raise ValueError(f"bad mesh_impl {self.mesh_impl!r}")
         if self.carve_steps < 0:

@@ -2,15 +2,16 @@
 
 The reference's roadmap lists "Space carving" as its last unbuilt item
 (reference: README.md:60); nothing in the C++ implements it.  This module
-builds it TPU-native, and deliberately as a *strict extension of the
-reference's own update rule*: the batch integrator clamps the projective
-signed distance to +-trunc (reference: include/chad/detail/octree.hpp:156-159)
-but only ever traverses the truncation band around each return
-(octree.hpp:92-96).  By that same rule, a voxel between the scanner and the
-band start is an observation of ``sd = +trunc`` — extending the DDA span
-toward the scanner and accumulating the clamped value is exactly what the
-reference integrator would do if its traversal covered the full ray.  Carving
-is that extension, made affordable:
+builds it as a device array program, and deliberately as a *strict
+extension of the reference's own update rule*: the batch integrator clamps
+the projective signed distance to +-trunc (reference:
+include/chad/detail/octree.hpp:156-159) but only ever traverses the
+truncation band around each return (octree.hpp:92-96).  By that same rule,
+a voxel between the scanner and the band start is an observation of
+``sd = +trunc`` — extending the DDA span toward the scanner and
+accumulating the clamped value is exactly what the reference integrator
+would do if its traversal covered the full ray.  Carving is that
+extension, made affordable:
 
 * **strided**, not exhaustive: ``carve_stride`` voxels between consecutive
   free-space samples and ``carve_subsample`` between carved rays, so a 50 m
@@ -38,7 +39,7 @@ Known tradeoffs (documented, inherent):
   already-finalized submap is out of carving's reach, as it is for every
   other mutation.
 
-Pipeline (pure XLA — identical on CPU and TPU; mirrors
+Pipeline (pure XLA — identical on CPU and GPU; mirrors
 ``insert_step_sparse_seg``'s sort -> segment-reduce -> compact shape):
 
 1. per carve ray, ``carve_steps`` strided sample positions from the scanner

@@ -1,10 +1,10 @@
-"""Active map state — the TPU-native replacement for the mutable octree.
+"""Active map state — the array-program replacement for the mutable octree.
 
 The reference's active map is a pointer-linked 21-level octree over two
 ``VirtualArray`` pools plus a depth-18 hashmap accelerator (reference:
 include/chad/detail/octree.hpp:12-188, include/chad/detail/virtual_array.hpp).
 Pointer chasing and growable pools don't map to XLA's static-shape model;
-the TPU-native active map is a **dense block pool**:
+the active map here is a **dense block pool**:
 
 * ``pool``: f32[block_capacity, 512, 2] — 8x8x8 voxels per block, channel 0 =
   accumulated signed-distance sum, channel 1 = accumulated weight (sample
@@ -33,6 +33,10 @@ import numpy as np
 from ..config import MapConfig
 
 INT32_MAX = np.int32(2**31 - 1)
+# pool rows at the end of every pool that no block is ever allocated to:
+# the last one is the dump row for dropped/overflowed entries.  Part of the
+# pool layout (checkpoints, overflow counts), so it stays 8 rows.
+RESERVED_ROWS = 8
 
 
 @jax.tree_util.register_dataclass
@@ -41,10 +45,8 @@ class ActiveMapState:
     dir_keys: jnp.ndarray      # i32[Cb] sorted local block keys, pad=INT32_MAX
     dir_slots: jnp.ndarray     # i32[Cb] pool row per directory entry
     n_blocks: jnp.ndarray      # i32[] allocated blocks
-    # the pool is two parallel (Cb, 512) planes, NOT one (Cb, 512, 2) array:
-    # TPU tiled layouts pad the minor dimension to 128 lanes, so a trailing
-    # dim of 2 would inflate HBM footprint 64x (observed: 64 GiB for a 1 GiB
-    # pool).
+    # the pool is two parallel (Cb, 512) planes, one per accumulator, so
+    # each plane is a contiguous row-major array the scatter indexes flat
     pool_sd: jnp.ndarray       # f32[Cb, 512] accumulated signed distance
     pool_w: jnp.ndarray        # f32[Cb, 512] accumulated weight (count)
     origin_blocks: jnp.ndarray  # i32[3] world block coord of local (0,0,0)
@@ -52,7 +54,8 @@ class ActiveMapState:
     sample_overflow: jnp.ndarray   # i32[] ray samples outside the local extent
     block_overflow: jnp.ndarray    # i32[] blocks dropped (pool full)
     touched_overflow: jnp.ndarray  # i32[] touched blocks beyond capacity
-    tile_overflow: jnp.ndarray     # i32[] samples beyond a tile's block list
+    # i32[] always 0: kept so checkpoints and bench output keep their layout
+    tile_overflow: jnp.ndarray
 
 
 def create_state(config: MapConfig, origin_blocks=None) -> ActiveMapState:

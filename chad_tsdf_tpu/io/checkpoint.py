@@ -31,6 +31,16 @@ from ..core.submap import Submap
 
 FORMAT_VERSION = 2
 
+# MapConfig fields that older checkpoints carry but that no longer exist:
+# they selected kernels that were removed and do not change the map's
+# contents, so loading drops them.  Any other unknown field still fails.
+_REMOVED_CONFIG_FIELDS = frozenset(
+    {"tile_nb", "sparse_tile_nb", "normals_impl", "sparse_impl",
+     "sparse_points_per_block"})
+# accumulate_impl values that named those kernels; they load as 'auto'
+_REMOVED_ACCUMULATE_IMPLS = frozenset({"fused", "tile", "sample_tile",
+                                       "pallas"})
+
 
 def _active_state(m: TSDFMap):
     """The map's active state; a ShardedTSDFMap's shards are merged exactly
@@ -123,7 +133,11 @@ def load_checkpoint(path: str, mesh=None) -> TSDFMap:
     if meta["format_version"] not in (1, FORMAT_VERSION):
         raise ValueError(f"unsupported checkpoint version "
                          f"{meta['format_version']}")
-    config = MapConfig(**meta["config"])
+    cfg_meta = {k: v for k, v in meta["config"].items()
+                if k not in _REMOVED_CONFIG_FIELDS}
+    if cfg_meta.get("accumulate_impl") in _REMOVED_ACCUMULATE_IMPLS:
+        cfg_meta["accumulate_impl"] = "auto"
+    config = MapConfig(**cfg_meta)
     m = TSDFMap(config=config)
 
     for d in range(dag.MAX_DEPTH):

@@ -1,63 +1,22 @@
 """Sample accumulation into the block pool.
 
 Replaces the reference's hottest loop — per-voxel hashmap lookup + weighted
-mean update (reference: include/chad/detail/octree.hpp:153-163) — with a
-deterministic, scatter-free device pipeline:
-
-* samples arrive **sorted by block key** (single int32 sort) with a packed
-  int32 payload (offset << 16 | 16-bit quantized sd);
-* touched-block segments are described by (start, length, pool-slot)
-  triples, re-sorted by slot and bucketed into *row groups* of 8 consecutive
-  pool rows (Mosaic's sublane tiling makes 8 rows the minimum aligned DMA
-  unit for a (Cb, 512) f32 array);
-* a Pallas kernel distributes the groups over a small static grid
-  (megacore-parallel: groups touch disjoint row windows); each grid step
-  loops over its strided share of groups: DMA the 8-row window of both pool
-  planes into VMEM, stream each member block's samples from HBM in aligned
-  1024-wide windows, expand offsets through an on-the-fly one-hot and
-  reduce on the MXU (``onehot(offset).T @ [sd, 1]``), add the (512, 2)
-  delta into the member's row, and DMA the window back.
+mean update (reference: include/chad/detail/octree.hpp:153-163) — with one
+scatter-add of (signed distance, weight 1) per sample into the dense block
+pool.  The pool stores (sum, count), so the update is associative and the
+weighted mean is recovered at finalize.
 
 The pool is two (Cb, 512) planes (sd-sum and weight) — see
-core/state.ActiveMapState for why not (Cb, 512, 2).
-
-Measured on TPU v5e: XLA's scatter-add runs at ~78 M samples/s, which is why
-the per-element scatter formulation is kept only as the portable fallback
-(`accumulate_xla`, also used on CPU in tests and as the differential-testing
-oracle for the kernel).
+core/state.ActiveMapState.
 """
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-# DMA window: Mosaic requires 1-D VMEM slices aligned to 1024 elements for
-# 32-bit dtypes, so block samples are streamed in aligned windows and masked
-# down to the block's [start, start+len) segment.  4096 amortizes DMA
-# latency; windows are double-buffered in the kernel.
-CHUNK = 1024
-# one-hot sub-tile height within a window
-SUB = 1024
-# pool rows per DMA group (f32 sublane tile height)
-GROUP = 8
-# static pallas grid size; groups are strided over it (keeps per-step grid
-# overhead off the critical path when only a few thousand groups are live)
-GRID_STEPS = 256
-# max entries per scalar-prefetch table: the kernel prefetches SIX i32[T]
-# tables into SMEM (gstart/glen/grow + starts/lens/slots) against the ~1 MiB
-# SMEM budget — 6 * 32768 * 4 B = 768 KiB leaves headroom for spill slots.
-# Callers with touched_capacity above this must slice the tables to the live
-# prefix (live entries are compacted first) or take the scatter fallback.
-SMEM_MAX_ENTRIES = 32768
 
 
 def accumulate_xla(pool_sd, pool_w, slots_per_sample, offsets, sd, valid):
-    """Portable scatter-add path.
+    """Scatter-add samples into the pool.
 
     pool_sd/pool_w: f32[Cb, 512]; slots_per_sample/offsets: i32[S];
     sd: f32[S]; valid: bool[S].
@@ -70,207 +29,3 @@ def accumulate_xla(pool_sd, pool_w, slots_per_sample, offsets, sd, valid):
     new_w = pool_w.reshape(-1).at[idx].add(
         valid.astype(jnp.float32), mode="drop").reshape(pool_w.shape)
     return new_sd, new_w
-
-
-def _accum_kernel(sd_scale: float,
-                  ng_ref, gstart_ref, glen_ref, grow_ref,   # scalar prefetch
-                  starts_ref, lens_ref, slots_ref,          # scalar prefetch
-                  payload_hbm, sd_pool_in, w_pool_in,       # ANY
-                  sd_pool_out, w_pool_out,                  # ANY (aliased)
-                  pay0, pay1, rows_sd, rows_w, sem):
-    step = pl.program_id(0)
-    n_groups = ng_ref[0]
-    # strided share of groups for this grid step
-    my_count = jnp.maximum((n_groups - step + GRID_STEPS - 1) // GRID_STEPS,
-                           0)
-
-    def group_body(gi, _):
-        g = step + gi * GRID_STEPS
-        gstart = gstart_ref[g]
-        glen = glen_ref[g]
-        row_base = grow_ref[g] * GROUP
-
-        cp_in1 = pltpu.make_async_copy(
-            sd_pool_in.at[pl.ds(row_base, GROUP), :], rows_sd, sem.at[0])
-        cp_in2 = pltpu.make_async_copy(
-            w_pool_in.at[pl.ds(row_base, GROUP), :], rows_w, sem.at[1])
-        cp_in1.start()
-        cp_in2.start()
-        cp_in1.wait()
-        cp_in2.wait()
-
-        def member_body(i, _):
-            t = gstart + i
-            start = starts_ref[t]
-            length = lens_ref[t]
-            end = start + length
-            row = slots_ref[t] - row_base
-
-            first = start // CHUNK
-            nchunks = jnp.where(length > 0,
-                                (end - 1) // CHUNK - first + 1, 0)
-
-            def dma_even(c):
-                base = pl.multiple_of((first + c) * CHUNK, CHUNK)
-                return pltpu.make_async_copy(
-                    payload_hbm.at[pl.ds(base, CHUNK)], pay0, sem.at[2])
-
-            def dma_odd(c):
-                base = pl.multiple_of((first + c) * CHUNK, CHUNK)
-                return pltpu.make_async_copy(
-                    payload_hbm.at[pl.ds(base, CHUNK)], pay1, sem.at[3])
-
-            @pl.when(nchunks > 0)
-            def _():
-                dma_even(0).start()
-
-            def chunk_body(c, acc):
-                even = (c % 2) == 0
-                # prefetch the next window while processing this one
-                @pl.when((c + 1 < nchunks) & even)
-                def _():
-                    dma_odd(c + 1).start()
-
-                @pl.when((c + 1 < nchunks) & ~even)
-                def _():
-                    dma_even(c + 1).start()
-
-                @pl.when(even)
-                def _():
-                    dma_even(c).wait()
-
-                @pl.when(~even)
-                def _():
-                    dma_odd(c).wait()
-
-                base = pl.multiple_of((first + c) * CHUNK, CHUNK)
-                window = jax.lax.cond(even, lambda: pay0[...],
-                                      lambda: pay1[...])
-                # bf16 one-hot with f32 accumulation: the one-hot entries
-                # (0/1) and the mask are exact in bf16; sd rounds to ~0.4%
-                # of trunc, far below the 8-bit output codec's trunc/127.
-                # All compares/selects stay in 32-bit (8,128) layouts; the
-                # only bf16 op is the final f32->bf16 pack (Mosaic cannot
-                # relayout an i1 vector from (8,128) to (16,128) directly).
-                for s in range(CHUNK // SUB):
-                    p = window[s * SUB:(s + 1) * SUB].reshape(SUB, 1)
-                    g_idx = (base + s * SUB) + jax.lax.broadcasted_iota(
-                        jnp.int32, (SUB, 1), 0)
-                    maskf = ((g_idx >= start) &
-                             (g_idx < end)).astype(jnp.float32)
-                    off = (p >> 16) & 0x1FF
-                    sdv = ((p << 16) >> 16).astype(jnp.float32) * sd_scale
-                    cols = jax.lax.broadcasted_iota(jnp.int32, (SUB, 512), 1)
-                    onehot = ((off == cols).astype(jnp.float32) *
-                              maskf).astype(jnp.bfloat16)
-                    vals = jnp.concatenate(
-                        [sdv * maskf, maskf], axis=-1).astype(jnp.bfloat16)
-                    acc = acc + jnp.dot(onehot.T, vals,
-                                        preferred_element_type=jnp.float32)
-                return acc
-
-            acc = jax.lax.fori_loop(0, nchunks, chunk_body,
-                                    jnp.zeros((512, 2), jnp.float32))
-            rowsel = (jax.lax.broadcasted_iota(jnp.int32, (GROUP, 1), 0) ==
-                      row).astype(jnp.float32)
-            rows_sd[...] += rowsel * acc[:, 0][None, :]
-            rows_w[...] += rowsel * acc[:, 1][None, :]
-            return 0
-
-        jax.lax.fori_loop(0, glen, member_body, 0)
-
-        cp_out1 = pltpu.make_async_copy(
-            rows_sd, sd_pool_out.at[pl.ds(row_base, GROUP), :], sem.at[0])
-        cp_out2 = pltpu.make_async_copy(
-            rows_w, w_pool_out.at[pl.ds(row_base, GROUP), :], sem.at[1])
-        cp_out1.start()
-        cp_out2.start()
-        cp_out1.wait()
-        cp_out2.wait()
-        return 0
-
-    jax.lax.fori_loop(0, my_count, group_body, 0)
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("touched_capacity", "sd_scale",
-                                    "interpret"))
-def accumulate_pallas(pool_sd, pool_w, n_groups, gstart, glen, grow,
-                      starts, lens, slots, payload,
-                      touched_capacity: int, sd_scale: float,
-                      interpret: bool = False):
-    """TPU path: per-row-group MXU accumulation.
-
-    pool_sd/pool_w: f32[Cb, 512].  n_groups: i32[1]; gstart/glen/grow:
-    i32[T] row-group table (see group_touched_blocks).  starts/lens/slots:
-    i32[T] touched-block segments SORTED BY SLOT.  payload: i32[S+pad]
-    packed samples, padded by at least CHUNK.
-    """
-    t_cap = touched_capacity
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=7,
-        grid=(GRID_STEPS,),
-        in_specs=[pl.BlockSpec(memory_space=pl.ANY)] * 3,
-        out_specs=[pl.BlockSpec(memory_space=pl.ANY)] * 2,
-        scratch_shapes=[
-            pltpu.VMEM((CHUNK,), jnp.int32),     # double-buffered windows
-            pltpu.VMEM((CHUNK,), jnp.int32),
-            pltpu.VMEM((GROUP, 512), jnp.float32),
-            pltpu.VMEM((GROUP, 512), jnp.float32),
-            pltpu.SemaphoreType.DMA((4,)),
-        ],
-    )
-    return pl.pallas_call(
-        functools.partial(_accum_kernel, sd_scale),
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct(pool_sd.shape, pool_sd.dtype),
-            jax.ShapeDtypeStruct(pool_w.shape, pool_w.dtype),
-        ],
-        input_output_aliases={8: 0, 9: 1},  # pools (after 7 scalars + 1 hbm)
-        compiler_params=pltpu.CompilerParams(
-            has_side_effects=True,
-            dimension_semantics=("arbitrary",),
-        ),
-        interpret=interpret,
-    )(n_groups, gstart, glen, grow, starts, lens, slots, payload,
-      pool_sd, pool_w)
-
-
-def group_touched_blocks(starts, lens, slots, t_cap: int, cb: int):
-    """Sort touched blocks by pool slot and bucket into 8-row groups.
-
-    Returns (n_groups i32[1], gstart, glen, grow, starts_s, lens_s,
-    slots_s) — the latter all i32[T].  Dummy groups point at the reserved
-    last 8 pool rows with zero length.
-    """
-    from . import segops
-
-    reserved_group = cb // GROUP - 1
-    slots_s, starts_s, lens_s = jax.lax.sort((slots, starts, lens),
-                                             num_keys=1)
-    gkey = slots_s // GROUP
-    # entries for the dummy/overflow slots all carry the reserved slot
-    # cb - 1 (the maximum), so live members are a contiguous PREFIX of the
-    # slot-sorted stream and m_live is the first reserved position.  This
-    # prefix property is what lets callers slice every table to a
-    # live-count bucket (SMEM_MAX_ENTRIES).
-    live = gkey != reserved_group
-    m_live = jnp.sum(live.astype(jnp.int32))
-    flags = segops.boundary_flags(gkey) & live
-    pos, g_count, _ = segops.compact_flag_positions(flags, t_cap)
-    gvalid = jnp.arange(t_cap, dtype=jnp.int32) < g_count
-    pos_c = jnp.minimum(pos, t_cap - 1)
-    nxt = jnp.concatenate([pos[1:], jnp.full((1,), t_cap, jnp.int32)])
-    gstart = jnp.where(gvalid, pos_c, 0)
-    # the LAST live group's nxt is t_cap (no further flag): cap every group
-    # at m_live or its member range would sweep the whole reserved tail —
-    # tens of thousands of dead fori iterations per insert, and
-    # out-of-bounds SMEM table reads (faulting DMA addresses) once the
-    # caller slices the tables to a live-count bucket
-    glen = jnp.where(gvalid,
-                     jnp.maximum(jnp.minimum(nxt, m_live) - pos_c, 0), 0)
-    grow = jnp.where(gvalid, gkey[pos_c], reserved_group)
-    grow = jnp.minimum(grow, reserved_group)
-    return (g_count.reshape(1), gstart, glen, grow, starts_s, lens_s,
-            slots_s)

@@ -8,10 +8,8 @@ here the traversal is a ``lax.scan`` over a *static* step budget K with a
 validity mask — every ray emits exactly K (voxel, valid) slots, and K is
 chosen so no traversal is ever truncated (see MapConfig.dda_steps).
 
-Layout note (TPU): everything is structure-of-arrays — per-axis 1-D (N,)
-arrays, and (K, N) outputs.  An (N, 3) or (N, K) array would be tiled with
-its minor dimension padded to 128 lanes, inflating memory traffic ~12-40x;
-the SoA form measured ~7x faster end-to-end on TPU v5e.
+Layout note: everything is structure-of-arrays — per-axis 1-D (N,) arrays,
+and (K, N) outputs.
 
 Semantics replicated exactly (verified against a scalar port in tests):
 

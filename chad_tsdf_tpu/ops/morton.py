@@ -1,9 +1,9 @@
-"""Morton (Z-order) codes, TPU-native.
+"""Morton (Z-order) codes as vectorized integer arithmetic.
 
 The reference uses libmorton's BMI2 ``pdep/pext`` instructions for 63-bit
-3D Morton codes (reference: include/chad/detail/morton.hpp:7-9,24-35).  TPUs
-have no pdep, so codes are built with the classic magic-number bit-spread,
-which vectorizes on the VPU.
+3D Morton codes (reference: include/chad/detail/morton.hpp:7-9,24-35).  XLA
+has no pdep, so codes are built with the classic magic-number bit-spread,
+which vectorizes as plain integer arithmetic.
 
 Two key domains are used:
 
@@ -13,7 +13,7 @@ Two key domains are used:
   (30 bits for the default block_bits=10); the 9-bit intra-block offset
   interleaves three 3-bit coordinates.  Splitting the 39-bit local voxel code
   into ``(block_key, offset)`` keeps every hot sort/search on single int32
-  keys — TPU-native, unlike emulated 64-bit arithmetic.
+  keys, with no 64-bit integer arithmetic on the device.
 
 * **Host (uint64)**: finalized submaps and meshing use the reference's global
   63-bit code: 21 bits per axis, signed coordinates biased by ``1 << 20``

@@ -8,7 +8,7 @@ normal toward the scanner, and assigns it to the whole run (reference:
 include/chad/detail/normals.hpp:81-148; plane fit at 10-80, credited to
 "plane from points", ilikebigbits.com).
 
-TPU-native reformulation (order-independent, deterministic):
+Array-program reformulation (order-independent, deterministic):
 
 * points are sorted by their local (block, offset) Morton key;
 * for depth d in {0,1,2} the points partition into *segments* of equal
@@ -19,8 +19,8 @@ TPU-native reformulation (order-independent, deterministic):
   covariance; otherwise the fallback normal ``normalize(position - point)``
   is used (normals.hpp:127-134).
 
-Layout note (TPU): all arrays are 1-D (N,) or feature-major (F, N) so the
-large axis is the lane dimension — see ops/dda.py.
+Layout note: all arrays are 1-D (N,) or feature-major (F, N) — see
+ops/dda.py.
 
 Two deliberate deviations from the reference, documented per SURVEY §7:
 the reference's greedy cursor makes later points in a segment use only the
@@ -31,9 +31,10 @@ order-independent and strictly more data per fit.
 Numerical care: covariance is accumulated from coordinates *relative to the
 segment's first point* (shift-invariant), so second moments never suffer the
 catastrophic cancellation a global cumsum-difference would have at world
-scale.  The reference uses double precision (normals.hpp:12); TPUs have no
-f64, so additionally the covariance is normalized to unit max element
-before the quartic determinant weights (which would underflow f32).
+scale.  The reference uses double precision (normals.hpp:12); the device
+path runs in f32, so additionally the covariance is normalized to unit max
+element before the quartic determinant weights (which would underflow
+f32).
 """
 
 from __future__ import annotations

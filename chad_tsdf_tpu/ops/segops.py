@@ -1,18 +1,18 @@
-"""Segment operations over sorted keys — the TPU replacement for hashmaps.
+"""Segment operations over sorted keys — the array replacement for hashmaps.
 
 The reference resolves "group by voxel / neighbourhood" queries with gtl hash
 tables (reference: include/chad/detail/octree.hpp:187,
 include/chad/detail/levels.hpp:93,143).  Hash tables are pointer-chasing and
-hostile to TPU; the idiomatic equivalent is *sorted keys + segment ops*:
+hostile to array programs; the idiomatic equivalent is *sorted keys +
+segment ops*:
 
 * segment starts via boundary flags + running maxima (dense scans),
 * exact per-segment sums via a segmented associative scan (numerically safe —
   no catastrophic cancellation from global-cumsum differences),
-* stream compaction of few-from-many via rank binary search (avoids XLA
-  scatter, which measures ~78 M elem/s on TPU v5e, and avoids large
-  searchsorted, which is worse).
+* stream compaction of few-from-many via a sort or a rank binary search
+  (no scatter over the long stream).
 
-All functions are shape-polymorphic pure jnp and run on CPU/TPU.
+All functions are shape-polymorphic pure jnp and run on CPU/GPU.
 """
 
 from __future__ import annotations
@@ -60,16 +60,13 @@ def _shift_right(x: jnp.ndarray, d: int, fill):
 def segmented_sum_scan(flags: jnp.ndarray, values: jnp.ndarray) -> jnp.ndarray:
     """Inclusive running sum that resets at each segment start.
 
-    ``values`` may be (N,) or feature-major (F, N) — feature-major so the
-    large N axis is the TPU lane dimension (an (N, F) layout would pad F to
-    128 lanes).  ``flags`` is (N,) boolean.  The value at a segment's last
+    ``values`` may be (N,) or feature-major (F, N).  ``flags`` is (N,)
+    boolean.  The value at a segment's last
     element is the exact per-segment sum, accumulated only within the
     segment (numerically superior to cumsum-difference).
 
-    Implemented as explicit Hillis-Steele shift/combine rounds: an
-    equivalent ``lax.associative_scan`` with a tuple operator takes minutes
-    to compile through the TPU toolchain; the unrolled form compiles fast
-    and runs at memory bandwidth.
+    Implemented as explicit Hillis-Steele shift/combine rounds (log2 N
+    elementwise passes).
     """
     n = flags.shape[0]
     f = flags
@@ -106,8 +103,7 @@ def segment_broadcast_first(flags: jnp.ndarray, values: jnp.ndarray):
     """Each element receives ``values`` at its segment's FIRST element.
 
     values: (N,) or feature-major (F, N); flags: (N,) segment-start flags.
-    Gather-free (one associative scan) — on TPU a 1M-element column gather
-    costs far more than a scan pass.
+    Gather-free (one associative scan).
     """
     return _last_valid_scan(flags, values)
 
@@ -120,8 +116,7 @@ def _shift_left(x: jnp.ndarray, d: int, fill):
 def segment_broadcast_last(flags: jnp.ndarray, values: jnp.ndarray):
     """Each element receives ``values`` at its segment's LAST element.
 
-    Backward next-valid scan in shift-left form — no array reversal (a flip
-    of a (10, N) array costs a full memory pass on TPU).
+    Backward next-valid scan in shift-left form — no array reversal.
     """
     n = flags.shape[0]
     h = jnp.concatenate([flags[1:], jnp.ones((1,), jnp.bool_)])  # is_end
@@ -147,8 +142,7 @@ def compact_flag_positions(flags: jnp.ndarray, capacity: int):
     Two regimes, never a scatter over *n* elements:
 
     * small n: one single-operand sort of ``where(flags, idx, n)`` — flag
-      positions float to the front in order (TPU: a 64k i32 sort is far
-      cheaper than capacity binary-search gathers).
+      positions float to the front in order.
     * large n (the multi-million sample streams): cumulative rank +
       ``searchsorted`` with *capacity* queries.
     """

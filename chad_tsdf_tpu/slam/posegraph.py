@@ -29,6 +29,19 @@ import jax.numpy as jnp
 import numpy as np
 
 
+def _full_f32(fn):
+    """Run ``fn`` with f32 matrix products at full precision.
+
+    GPUs run f32 matmuls in TF32 (~3 decimal digits) by default; the
+    Gauss-Newton normal equations and the SE(3) maps need full f32.  The
+    scope covers the jitted helpers too, since they trace inside it."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with jax.default_matmul_precision("highest"):
+            return fn(*args, **kwargs)
+    return wrapped
+
+
 # ---------------------------------------------------------------------------
 # SE(3) exponential / logarithm (tangent = [rho, phi]: translation, rotation)
 # ---------------------------------------------------------------------------
@@ -43,6 +56,7 @@ def _hat(v):
     ])
 
 
+@_full_f32
 def se3_exp(xi):
     """se(3) tangent (6,) [rho, phi] -> (4, 4) homogeneous transform."""
     rho, phi = xi[:3], xi[3:]
@@ -66,6 +80,7 @@ def se3_exp(xi):
     return jnp.concatenate([top, bot], axis=0)
 
 
+@_full_f32
 def se3_log(T):
     """(4, 4) homogeneous transform -> se(3) tangent (6,) [rho, phi].
 
@@ -103,6 +118,7 @@ class PoseGraph:
     weights: np.ndarray        # (E,) float32 information scale per edge
 
 
+@_full_f32
 def make_odometry_edges(poses: np.ndarray, noise: float = 0.0,
                         seed: int = 0) -> PoseGraph:
     """Consecutive-pose odometry constraints from a trajectory (T, 4, 4);
@@ -229,6 +245,16 @@ def _accumulate_normal_eq(poses, edges, z_inv, weights, valid, n_nodes,
     return H, b, cost
 
 
+def gauss_newton_step(H, b, damping: float):
+    """Damped Gauss-Newton update ``dx`` from the normal equations, node 0
+    gauge-fixed by lifting its diagonal block."""
+    n6 = H.shape[0]
+    gauge = jnp.zeros(n6).at[:6].set(1e12)
+    Hd = H + jnp.diag(gauge + damping * jnp.maximum(jnp.diag(H), 1.0))
+    return -jnp.linalg.solve(Hd, b)
+
+
+@_full_f32
 def optimize_poses(graph: PoseGraph, init_poses: np.ndarray,
                    iterations: int = 10, damping: float = 1e-6,
                    mesh=None, axis: str = "shard",
@@ -329,12 +355,7 @@ def optimize_poses(graph: PoseGraph, init_poses: np.ndarray,
         for _ in range(n_iter):
             H, b, cost = acc(poses, weights_j)
             costs.append(float(cost))
-            # gauge fix: clamp node 0 by lifting its diagonal block
-            gauge = jnp.zeros(6 * n).at[:6].set(1e12)
-            Hd = H + jnp.diag(gauge +
-                              damping * jnp.maximum(jnp.diag(H), 1.0))
-            dx = -jnp.linalg.solve(Hd, b)
-            poses = apply_fn(poses, dx)
+            poses = apply_fn(poses, gauss_newton_step(H, b, damping))
             if costs[-1] < 1e-18:
                 break
         return poses

@@ -2,7 +2,7 @@
 //
 // The reference implements its DAG hash-consing with gtl parallel hash sets
 // whose functors dereference the node pools (reference:
-// include/chad/detail/levels.hpp:8-144).  The TPU build keeps the quantized
+// include/chad/detail/levels.hpp:8-144).  This build keeps the quantized
 // per-voxel math on device and performs the pointer-ish hash-consing on the
 // host; this library is the fast path for that (the pure-numpy/python
 // implementation in core/dag.py remains as the portable fallback and as the

@@ -25,7 +25,7 @@ from chad_tsdf_tpu.ops import morton
 
 CFG = MapConfig(max_points=4096, block_capacity=4096,
                 touched_capacity=1024, block_bits=7,
-                accumulate_impl="xla", normals_impl="xla",
+                accumulate_impl="xla",
                 carve_steps=40, carve_stride=2.0, carve_subsample=1,
                 carve_weight=1.0)
 

@@ -181,3 +181,39 @@ def test_sharded_checkpoint_topology_elastic(tmp_path):
     # normals on 4 vs 8 shard splits differ at cut points; sd near-equal
     step = cfg.sdf_trunc / 127
     assert (np.abs(s4b - s8b) <= 2 * step).mean() > 0.98
+
+
+def test_loads_checkpoint_with_removed_config_fields(tmp_path):
+    """Checkpoints written before the kernel options were removed carry
+    tile_nb / normals_impl / sparse_impl / sparse_tile_nb (and may name a
+    removed accumulate backend); they must still load, to the same map."""
+    import json
+
+    m = TSDFMap(config=MapConfig(**SMALL))
+    m.insert(sphere_points(2048), np.zeros(3))
+    p = str(tmp_path / "new.npz")
+    save_checkpoint(p, m)
+
+    z = dict(np.load(p))
+    meta = json.loads(bytes(z["__meta__"]).decode())
+    meta["config"].update(tile_nb=48, normals_impl="auto", sparse_impl="seg",
+                          sparse_tile_nb=128, sparse_points_per_block=64.0,
+                          accumulate_impl="fused")
+    z["__meta__"] = np.frombuffer(json.dumps(meta).encode(), np.uint8)
+    old = str(tmp_path / "old.npz")
+    np.savez_compressed(old, **z)
+
+    m2 = load_checkpoint(old)
+    assert m2.config.accumulate_impl == "auto"
+    assert m2.config.block_capacity == SMALL["block_capacity"]
+    c1, s1 = m.voxel_samples()
+    c2, s2 = m2.voxel_samples()
+    np.testing.assert_array_equal(c1, c2)
+    np.testing.assert_array_equal(s1, s2)
+
+    meta["config"]["no_such_field"] = 1
+    z["__meta__"] = np.frombuffer(json.dumps(meta).encode(), np.uint8)
+    np.savez_compressed(old, **z)
+    import pytest
+    with pytest.raises(TypeError):
+        load_checkpoint(old)

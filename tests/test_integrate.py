@@ -81,37 +81,31 @@ def test_no_overflow_counters():
     assert int(state.touched_overflow) == 0
 
 
-def test_accumulation_matches_bruteforce():
+def _check_against_bruteforce(cfg, pts, pos):
     """Pool contents must equal a scalar DDA + dict accumulation oracle."""
-    from chad_tsdf_tpu.ops import dda as dda_mod
     from tests.test_dda import scalar_dda
 
-    cfg = MapConfig(max_points=128, block_capacity=1024, touched_capacity=1024,
-                    accumulate_impl="xla")
-    rng = np.random.default_rng(3)
-    pts = rng.uniform(-1, 1, (100, 3)).astype(np.float32)
-    pos = np.array([0.0, 0.0, 3.0], np.float32)
+    n = pts.shape[0]
     state, _ = run_insert(cfg, pts, pos)
     coords, sd, w = pool_voxels(state, cfg)
     got = {tuple(c): (s, ww) for c, s, ww in zip(coords, sd, w)}
 
     # oracle: same normals as the pipeline (read them via the same path)
-    import jax.numpy as jnp
+    import jax.lax as lax
     from chad_tsdf_tpu.ops import morton, normals
     local, _ = morton.points_to_local_voxels(
         jnp.asarray(pts), jnp.asarray(state.origin_blocks) * 8,
         cfg.blocks_per_axis * 8, cfg.sdf_res)
     bk = morton.encode_block(local[:, 0] >> 3, local[:, 1] >> 3, local[:, 2] >> 3)
     ok = morton.encode_offset(local[:, 0] & 7, local[:, 1] & 7, local[:, 2] & 7)
-    import jax.lax as lax
-    sb, so, perm = lax.sort((bk, ok, jnp.arange(100, dtype=jnp.int32)),
+    sb, so, perm = lax.sort((bk, ok, jnp.arange(n, dtype=jnp.int32)),
                             num_keys=2)
     pts_s = np.asarray(jnp.asarray(pts)[perm])
     nrm = np.asarray(normals.estimate_normals(
-        jnp.asarray(pts_s), sb, so, jnp.ones(100, bool), jnp.asarray(pos)))
+        jnp.asarray(pts_s), sb, so, jnp.ones(n, bool), jnp.asarray(pos)))
 
     acc: dict = {}
-    for i in range(100):
+    for i in range(n):
         for v in scalar_dda(pts_s[i], pos, cfg.sdf_res, cfg.sdf_trunc):
             vpos = np.array(v, np.float64) * cfg.sdf_res
             s = float(np.dot(nrm[i], vpos - pts_s[i]))
@@ -124,6 +118,27 @@ def test_accumulation_matches_bruteforce():
         s_got, w_got = got[v]
         assert w_got == cnt
         np.testing.assert_allclose(s_got, ssum / cnt, atol=1e-4)
+
+
+def test_accumulation_matches_bruteforce():
+    cfg = MapConfig(max_points=128, block_capacity=1024, touched_capacity=1024,
+                    accumulate_impl="xla")
+    rng = np.random.default_rng(3)
+    pts = rng.uniform(-1, 1, (100, 3)).astype(np.float32)
+    _check_against_bruteforce(cfg, pts, np.array([0.0, 0.0, 3.0], np.float32))
+
+
+@pytest.mark.parametrize("impl", ["xla", "seg"])
+@pytest.mark.parametrize("radius", [
+    0.25,    # dense: hundreds of samples per touched block
+    1.0,     # medium: plane fits dominate the normals
+    5.0,     # sparse: ~1 point per block, mostly fallback normals
+])
+def test_impl_matches_bruteforce(impl, radius):
+    cfg = MapConfig(max_points=256, block_capacity=2048,
+                    touched_capacity=2048, accumulate_impl=impl)
+    _check_against_bruteforce(cfg, sphere_points(256, r=radius, seed=4),
+                              np.zeros(3, np.float32))
 
 
 def test_incremental_matches_batch():
@@ -155,114 +170,9 @@ def test_determinism():
                                   np.asarray(s2.dir_keys))
 
 
-def test_pallas_interpret_matches_xla():
-    """Differential test: the Pallas accumulate kernel (interpret mode on
-    CPU) must produce bit-identical pools to the XLA scatter path."""
-    from chad_tsdf_tpu.core.integrate import pack_payload, unpack_payload
-    from chad_tsdf_tpu.ops import accumulate as acc_mod
-
-    rng = np.random.default_rng(9)
-    cb, t_cap, s_n = 64, 32, 4096
-    trunc = 0.1
-    pool_sd = jnp.zeros((cb, 512), jnp.float32)
-    pool_w = jnp.zeros((cb, 512), jnp.float32)
-    # sorted-by-block synthetic samples over <32 blocks, slots scattered
-    blocks = np.sort(rng.integers(0, 30, s_n))
-    offs = jnp.asarray(rng.integers(0, 512, s_n), jnp.int32)
-    sd_raw = jnp.asarray(rng.uniform(-trunc, trunc, s_n), jnp.float32)
-    payload = pack_payload(offs, sd_raw, trunc)
-    okey, sd = unpack_payload(payload, trunc)   # both paths see these
-    uniq = np.unique(blocks)
-    slot_of = {b: int(s) for b, s in
-               zip(uniq, rng.permutation(cb - acc_mod.GROUP)[:len(uniq)])}
-    starts_np, lens_np, slots_np = [], [], []
-    for b in uniq:
-        m = np.nonzero(blocks == b)[0]
-        starts_np.append(int(m[0]))
-        lens_np.append(len(m))
-        slots_np.append(slot_of[b])
-    pad_t = t_cap - len(starts_np)
-    starts = jnp.asarray(starts_np + [0] * pad_t, jnp.int32)
-    lens = jnp.asarray(lens_np + [0] * pad_t, jnp.int32)
-    slots = jnp.asarray(slots_np + [cb - 1] * pad_t, jnp.int32)
-
-    slot_per_sample = np.zeros(s_n, np.int32)
-    for b in uniq:
-        slot_per_sample[blocks == b] = slot_of[b]
-    ref_sd, ref_w = acc_mod.accumulate_xla(
-        pool_sd, pool_w, jnp.asarray(slot_per_sample), okey, sd,
-        jnp.ones(s_n, bool))
-
-    groups = acc_mod.group_touched_blocks(starts, lens, slots, t_cap, cb)
-    got_sd, got_w = acc_mod.accumulate_pallas(
-        pool_sd, pool_w, *groups,
-        jnp.concatenate([payload, jnp.zeros(acc_mod.CHUNK, jnp.int32)]),
-        touched_capacity=t_cap,
-        sd_scale=trunc / 32767.0, interpret=True)
-    # the kernel's one-hot matmul runs in bf16 (counts exact; sd rounds to
-    # ~0.4% of trunc per sample, below the 8-bit output codec granularity)
-    np.testing.assert_array_equal(np.asarray(got_w), np.asarray(ref_w))
-    err = np.abs(np.asarray(got_sd) - np.asarray(ref_sd))
-    per = err / np.maximum(np.asarray(ref_w), 1)     # error per sample
-    assert per.max() < 1e-3, per.max()
-
-
-def test_pallas_accumulate_sliced_prefix_tables():
-    """update_pool slices the six scalar-prefetch tables to a live-count
-    bucket before calling accumulate_pallas (SMEM holds at most
-    accumulate.SMEM_MAX_ENTRIES entries per table).  The slicing is valid
-    because live entries are compacted to the front of every table; this
-    test pins that invariant: a sliced-prefix call must produce the exact
-    pools of the full-table call."""
-    from chad_tsdf_tpu.core.integrate import pack_payload
-    from chad_tsdf_tpu.ops import accumulate as acc_mod
-
-    rng = np.random.default_rng(11)
-    cb, t_cap, s_n = 128, 64, 4096
-    trunc = 0.1
-    pool_sd = jnp.zeros((cb, 512), jnp.float32)
-    pool_w = jnp.zeros((cb, 512), jnp.float32)
-    blocks = np.sort(rng.integers(0, 20, s_n))       # 20 live blocks << t_cap
-    offs = jnp.asarray(rng.integers(0, 512, s_n), jnp.int32)
-    sd_raw = jnp.asarray(rng.uniform(-trunc, trunc, s_n), jnp.float32)
-    payload = jnp.concatenate([pack_payload(offs, sd_raw, trunc),
-                               jnp.zeros(acc_mod.CHUNK, jnp.int32)])
-    uniq = np.unique(blocks)
-    slot_of = {b: int(s) for b, s in
-               zip(uniq, rng.permutation(cb - acc_mod.GROUP)[:len(uniq)])}
-    starts_np, lens_np, slots_np = [], [], []
-    for b in uniq:
-        m = np.nonzero(blocks == b)[0]
-        starts_np.append(int(m[0]))
-        lens_np.append(len(m))
-        slots_np.append(slot_of[b])
-    pad_t = t_cap - len(starts_np)
-    starts = jnp.asarray(starts_np + [0] * pad_t, jnp.int32)
-    lens = jnp.asarray(lens_np + [0] * pad_t, jnp.int32)
-    slots = jnp.asarray(slots_np + [cb - 1] * pad_t, jnp.int32)
-
-    ng, gstart, glen, grow, starts_s, lens_s, slots_s = \
-        acc_mod.group_touched_blocks(starts, lens, slots, t_cap, cb)
-    full = acc_mod.accumulate_pallas(
-        pool_sd, pool_w, ng, gstart, glen, grow, starts_s, lens_s, slots_s,
-        payload, touched_capacity=t_cap, sd_scale=trunc / 32767.0,
-        interpret=True)
-    n_live = int(jnp.sum(slots_s != cb - 1))
-    assert n_live == len(uniq)
-    b = 32                                            # bucket >= n_live
-    sliced = acc_mod.accumulate_pallas(
-        pool_sd, pool_w, ng, gstart[:b], glen[:b], grow[:b],
-        starts_s[:b], lens_s[:b], slots_s[:b], payload,
-        touched_capacity=b, sd_scale=trunc / 32767.0, interpret=True)
-    np.testing.assert_array_equal(np.asarray(full[0]), np.asarray(sliced[0]))
-    np.testing.assert_array_equal(np.asarray(full[1]), np.asarray(sliced[1]))
-
-
 def test_sort_points_order_contract():
     """sort_points_soa must produce exact (bkey, okey) lexicographic order
-    with the INT32_MAX padding tail last, whatever its implementation (a
-    two-pass 1-key variant was tried and reverted: it halved the sort in
-    isolation but lost 2.3 ms in-graph — see micro_sort_shapes.py)."""
+    with the INT32_MAX padding tail last, whatever its implementation."""
     rng = np.random.default_rng(7)
     n = 8192
     bkey = rng.integers(0, 500, n).astype(np.int32)
@@ -289,31 +199,6 @@ def test_sort_points_order_contract():
     for i in range(0, n, 97):
         pair = (int(np.asarray(sb)[i]), int(np.asarray(so)[i]))
         assert pair in key_of[(sx_n[i], sy_n[i], sz_n[i])]
-
-
-def test_group_tables_bounded_by_live_members():
-    """The last live group's glen must stop at the live-member prefix, not
-    sweep the reserved tail: the accumulate kernel indexes the member
-    tables at gstart+i for i < glen, and callers slice those tables to a
-    live-count bucket — an overrunning glen means out-of-bounds SMEM reads
-    (observed as a TPU worker crash) and tens of thousands of dead loop
-    iterations per insert."""
-    from chad_tsdf_tpu.ops import accumulate as acc_mod
-
-    cb, t_cap = 256, 64
-    # 3 live blocks, everything else reserved
-    slots = jnp.asarray([5, 9, 200] + [cb - 1] * (t_cap - 3), jnp.int32)
-    starts = jnp.asarray(list(range(t_cap)), jnp.int32)
-    lens = jnp.asarray([4] * t_cap, jnp.int32)
-    ng, gstart, glen, grow, starts_s, lens_s, slots_s = \
-        acc_mod.group_touched_blocks(starts, lens, slots, t_cap, cb)
-    n_live = int(jnp.sum(slots_s != cb - 1))
-    assert n_live == 3
-    for g in range(int(ng[0])):
-        assert int(gstart[g]) + int(glen[g]) <= n_live, \
-            (g, int(gstart[g]), int(glen[g]))
-    # group members must cover exactly the live prefix
-    assert sum(int(glen[g]) for g in range(int(ng[0]))) == n_live
 
 
 def test_seg_impl_matches_xla():
@@ -405,3 +290,40 @@ def test_insert_steps_scan_matches_looped():
                                   np.asarray(st_scan.pool_w))
     np.testing.assert_allclose(np.asarray(st_loop.pool_sd),
                                np.asarray(st_scan.pool_sd), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n_live", [40, 900])   # small and full row bucket
+def test_update_pool_rows_matches_dense_add(n_live):
+    """The sharded merge's row scatter must equal a dense numpy add of every
+    row into its block's pool row (duplicate keys sum, empty keys drop)."""
+    cfg = MapConfig(max_points=128, block_capacity=1024,
+                    touched_capacity=512)
+    rng = np.random.default_rng(n_live)
+    p = 1024
+    keys = np.full(p, 2**31 - 1, np.int32)
+    keys[:n_live] = rng.integers(0, 300, n_live)         # with duplicates
+    rng.shuffle(keys)
+    psd = rng.uniform(-1, 1, (p, 512)).astype(np.float32)
+    pw = rng.integers(0, 4, (p, 512)).astype(np.float32)
+
+    state = create_state(cfg)
+    state, metrics = integrate.update_pool_rows(
+        state, jnp.asarray(keys), jnp.asarray(psd), jnp.asarray(pw),
+        jnp.int32(0), jnp.int32(0), jnp.int32(0), cfg)
+
+    uniq = np.unique(keys[keys != 2**31 - 1])
+    assert int(state.n_blocks) == len(uniq)
+    assert int(metrics["n_touched_blocks"]) == len(uniq)
+    dk = np.asarray(state.dir_keys)[:len(uniq)]
+    slots = np.asarray(state.dir_slots)[:len(uniq)]
+    np.testing.assert_array_equal(dk, uniq)
+    for k, slot in zip(dk, slots):
+        sel = keys == k
+        np.testing.assert_allclose(np.asarray(state.pool_sd)[slot],
+                                   psd[sel].sum(0), rtol=1e-6, atol=1e-5)
+        np.testing.assert_array_equal(np.asarray(state.pool_w)[slot],
+                                      pw[sel].sum(0))
+    # nothing lands outside the allocated rows
+    used = np.zeros(cfg.block_capacity, bool)
+    used[slots] = True
+    assert not np.asarray(state.pool_w)[~used].any()

@@ -158,3 +158,27 @@ def test_large_drift_loop_closure_not_gated():
     drift1 = np.linalg.norm(opt[-1][:3, 3] - gt[-1][:3, 3])
     assert drift1 < 0.1 * drift0, (drift0, drift1)
     assert np.isfinite(opt).all()
+
+
+def test_gauss_newton_step_matches_float64_solve():
+    """The damped, gauge-fixed normal-equation solve must match a float64
+    numpy solve to f32 accuracy (it runs at full f32 matmul precision, not
+    the GPU's TF32 default)."""
+    from chad_tsdf_tpu.slam.posegraph import gauss_newton_step
+
+    rng = np.random.default_rng(5)
+    n6 = 24
+    a = rng.normal(size=(n6, n6))
+    H = (a @ a.T / n6 + np.eye(n6)).astype(np.float32)
+    b = rng.normal(size=n6).astype(np.float32)
+    damping = 1e-6
+
+    dx = np.asarray(gauss_newton_step(jnp.asarray(H), jnp.asarray(b),
+                                      damping))
+    H64, b64 = H.astype(np.float64), b.astype(np.float64)
+    gauge = np.zeros(n6)
+    gauge[:6] = 1e12
+    Hd = H64 + np.diag(gauge + damping * np.maximum(np.diag(H64), 1.0))
+    want = -np.linalg.solve(Hd, b64)
+    np.testing.assert_allclose(dx, want, rtol=1e-4, atol=1e-6)
+    assert np.abs(dx[:6]).max() < 1e-9          # node 0 is held fixed

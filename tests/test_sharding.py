@@ -159,11 +159,11 @@ def test_hotspot_zero_drops():
 
 
 @needs_mesh
-def test_fused_kernel_under_shard_map():
-    """The production fused Pallas path must be the one dispatched inside
-    shard_map (interpret mode on the CPU mesh)."""
+def test_seg_impl_under_shard_map():
+    """The 'seg' insert backend must run inside shard_map and give the
+    single-device voxel set and weights."""
     cfg = MapConfig(max_points=1024, block_capacity=4096,
-                    touched_capacity=2048, accumulate_impl="fused")
+                    touched_capacity=2048, accumulate_impl="seg")
     pts = sphere_points(8 * cfg.max_points, seed=5)
     state_stack, metrics, origin = run_sharded(pts, cfg=cfg)
     assert metrics["route_overflow"] == 0

@@ -1,7 +1,7 @@
 """Compare this build's mesh against the C++ reference's mesh — the
 out-of-band half of BASELINE.md target 2 ("vertex RMSE vs reference mesh").
 
-The reference cannot be built in the TPU environment (its CMake deps are
+The reference cannot be built in an offline environment (its CMake deps are
 all FetchContent and there is no network), so the protocol is:
 
 1. On any networked Linux host with a C++20 toolchain:
